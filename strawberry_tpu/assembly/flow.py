@@ -10,7 +10,7 @@ The golden flow solve itself is the lemon-exact NetworkSimplex
 (assembly/lemonns.py oracle; native/lemonns.cc on the hot path, where it
 is chained with the decompose/reconstruct below inside assembleprep.cc).
 min_cost_flow here delegates to the dense SSP spec
-(assembly/mincostflow.py) — the formulation the batched TPU DP
+(assembly/mincostflow.py) — the formulation the batched device DP
 (assembly/device.py, Bellman-Ford relaxations as masked min-plus matrix
 ops over padded adjacency tensors) is validated against; on degenerate
 optima it may pick a different optimal flow than lemon, which is why it is

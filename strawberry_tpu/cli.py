@@ -12,8 +12,9 @@ from .pipeline import run_driver
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="strawberry-tpu",
-        description="TPU-native transcript assembly and quantification")
+        prog="strawberry",
+        description="transcript assembly and quantification with JAX "
+                    "device kernels")
     p.add_argument("bam", help="position-sorted input BAM")
     p.add_argument("-o", "--output-gtf", default="./strawberry_assembled.gtf")
     p.add_argument("-T", "--logfile", default="/tmp/strawberry.log")
@@ -50,14 +51,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "consumed and pass 2 re-decodes the BAM — peak "
                         "RSS O(decode window), even on deep "
                         "single-chromosome inputs")
-    p.add_argument("--no-tpu", action="store_true",
+    p.add_argument("--no-device", "--no-tpu", dest="no_device",
+                   action="store_true",
                    help="run host-only (skip JAX device kernels)")
     p.add_argument("--fast-em", action="store_true",
-                   help="offload EM to the TPU (f32 Pallas kernel; "
-                        "abundances within ~1e-6 of golden) once the run "
-                        "is big enough to amortize the dispatch RTT — "
-                        "small runs auto-degrade to the host EM, so the "
-                        "flag never loses (benchmarks/em_crossover.json)")
+                   help="solve every locus EM that fits the tier menu on "
+                        "the JAX device in float32 (transcript structures "
+                        "unchanged, abundances within ~1e-4 of the "
+                        "golden f64 host EM)")
     p.add_argument("--shards", type=int, default=0,
                    help="CORRECTNESS SIMULATION of the N-shard distributed "
                         "pipeline: shards run IN SEQUENCE in this process "
@@ -96,7 +97,7 @@ def config_from_args(args) -> Config:
         ref_fasta_file=args.bias_correction,
         print_frag_context=bool(args.fragment_context),
         frag_context_out=args.fragment_context or "./frag_context.csv",
-        device_batch=not args.no_tpu,
+        device_batch=not args.no_device,
         fast_em=args.fast_em,
         low_mem=args.low_mem,
     )
@@ -114,34 +115,44 @@ def config_from_args(args) -> Config:
 
 
 def _maybe_init_distributed() -> int:
-    """Multi-host launch (SURVEY §5 distribution): when the launcher sets
-    STRAWB_DIST_COORD / STRAWB_DIST_NPROCS / STRAWB_DIST_PROCID, initialize
-    jax.distributed BEFORE any JAX use and return this host's process id
-    (0 when single-host)."""
+    """Multi-process launch (SURVEY §5 distribution): when the launcher
+    sets STRAWB_DIST_COORD / STRAWB_DIST_NPROCS / STRAWB_DIST_PROCID
+    (and STRAWB_DIST_PROCS_PER_HOST when the processes span several
+    hosts), initialize jax.distributed BEFORE any JAX use and return this
+    process's id (0 when single-process); each process binds one card of
+    its host."""
     nprocs = int(os.environ.get("STRAWB_DIST_NPROCS", "1"))
     if nprocs <= 1:
         return 0
     coord = os.environ.get("STRAWB_DIST_COORD", "127.0.0.1:9731")
     pid = int(os.environ.get("STRAWB_DIST_PROCID", "0"))
+    per_host = int(os.environ.get("STRAWB_DIST_PROCS_PER_HOST", "0"))
     from .parallel.collectives import init_distributed
-    init_distributed(coord, nprocs, pid)
+    init_distributed(coord, nprocs, pid, per_host)
     return pid
 
 
 def main(argv=None) -> int:
+    return run(argv)[0]
+
+
+def run(argv=None):
+    """main() that also returns the single-process Sample (None on the
+    distributed, sharded and forked -p paths): (exit code, Sample)."""
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
     _maybe_init_distributed()
     distributed = int(os.environ.get("STRAWB_DIST_NPROCS", "1")) > 1
+    sample = None
 
     if os.path.exists(cfg.output_gtf):
         print(f"{cfg.output_gtf} exists! Exit.", file=sys.stderr)
-        return 1
+        return 1, None
     os.makedirs(os.path.dirname(os.path.abspath(cfg.output_gtf)),
                 exist_ok=True)
     os.makedirs(os.path.dirname(os.path.abspath(cfg.logfile)), exist_ok=True)
 
-    cmdline = " ".join(["strawberry-tpu"] + (argv or sys.argv[1:]))
+    cmdline = " ".join(["strawberry"] + (argv or sys.argv[1:]))
     with open(cfg.output_gtf, "w") as out, open(cfg.logfile, "w") as log:
         out.write(f"#{cmdline} \n")
         out.write("#########################################\n")
@@ -172,15 +183,15 @@ def main(argv=None) -> int:
                 run_sharded(table, cfg, args.bam, out, log,
                             n_shards=args.shards, mesh=make_mesh(mdl=1))
             else:
-                run_driver(args.bam, cfg, out, log, fragfh, cmdline)
+                sample = run_driver(args.bam, cfg, out, log, fragfh, cmdline)
         except IOError as e:
             print(f"ERROR: {e}", file=sys.stderr)
-            return 1
+            return 1, None
         finally:
             if fragfh:
                 fragfh.close()
     print("Program finished")
-    return 0
+    return 0, sample
 
 
 if __name__ == "__main__":

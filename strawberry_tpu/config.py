@@ -72,19 +72,18 @@ class Config:
     no_quant: bool = False                  # --no-quant
     long_read_sample: bool = False          # auto-detected
 
-    # --- runtime / TPU -----------------------------------------------------
+    # --- runtime / device --------------------------------------------------
     device_batch: bool = True               # run batched kernels on the JAX device
     native_cluster: bool = True             # C++ clusterizer (validated vs oracle)
     stream_decode: bool = True              # streaming BAM decode overlapping pass 1
     low_mem: bool = False                   # --low-mem: drop decoded blocks as consumed;
                                             # pass 2 re-decodes (O(window) peak RSS)
-    fast_em: bool = False                   # f32 Pallas EM (throughput mode;
+    fast_em: bool = False                   # f32 device EM (throughput mode;
                                             # trades golden bit-parity for speed)
-    device_prep: bool = None                # TPU integer compat/row kernels for
-                                            # pass-2 quant prep (byte-exact).
-                                            # None = auto: on when the JAX
-                                            # backend is a real accelerator;
-                                            # STRAWB_DEVICE_PREP=0/1 overrides
+    device_prep: bool = None                # device integer compat/row kernels
+                                            # for pass-2 quant prep (byte-exact).
+                                            # None = auto (off until measured;
+                                            # STRAWB_DEVICE_PREP overrides)
     mesh_shape: tuple = ()                  # () = single device; e.g. (8,) data-parallel
 
     def replace(self, **kw) -> "Config":

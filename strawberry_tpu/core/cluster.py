@@ -7,7 +7,7 @@ cursor over in-memory numpy hit tables (strawberry_tpu.io.bamreader.HitTable);
 "rewind one hit" is a cursor decrement.
 
 Each finished cluster is an independent unit of work — downstream these are
-batched into padded tensors for the TPU kernels.
+batched into padded tensors for the device kernels.
 """
 from __future__ import annotations
 

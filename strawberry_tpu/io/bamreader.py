@@ -4,7 +4,7 @@ Host-side decode layer replacing the reference's libbam + BAMHitFactory
 (ref: src/read.cpp:310-715, external/samtools-0.1.19). Instead of streaming
 one bam1_t at a time, we decode the whole (or a coordinate range of a) BAM
 into structure-of-arrays numpy tensors that feed the clustering and the
-batched TPU kernels.
+batched device kernels.
 
 Filter semantics follow BAMHitFactory::getHitFromBuf exactly
 (src/read.cpp:480-715):

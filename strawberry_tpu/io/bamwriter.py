@@ -12,6 +12,8 @@ import zlib
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
+
 BAM_CIGAR_OPS = "MIDNSHP=X"
 _OP2CODE = {c: i for i, c in enumerate(BAM_CIGAR_OPS)}
 _SEQ_NT16 = "=ACMGRSVTWYHKDBN"
@@ -47,13 +49,16 @@ def pack_cigar(cigar: Sequence[Tuple[int, str]]) -> bytes:
     return out
 
 
+# byte -> 4-bit nt16 code (case-insensitive, 15 = N for anything else)
+_NT_LUT = bytes(_NT2CODE.get(chr(b).upper(), 15) for b in range(256))
+
+
 def pack_seq(seq: str) -> bytes:
-    out = bytearray()
-    for i in range(0, len(seq), 2):
-        hi = _NT2CODE.get(seq[i].upper(), 15)
-        lo = _NT2CODE.get(seq[i + 1].upper(), 15) if i + 1 < len(seq) else 0
-        out.append((hi << 4) | lo)
-    return bytes(out)
+    codes = np.frombuffer(seq.encode("latin-1", "replace").translate(_NT_LUT),
+                          np.uint8)
+    if len(codes) % 2:
+        codes = np.append(codes, np.uint8(0))
+    return ((codes[0::2] << 4) | codes[1::2]).tobytes()
 
 
 @dataclass

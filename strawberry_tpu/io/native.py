@@ -29,6 +29,17 @@ def _build():
                    check=True, capture_output=True)
 
 
+def _stale() -> bool:
+    """The library is missing or older than one of its tracked sources
+    (a checkout on another machine rebuilds for its own CPU)."""
+    if not os.path.exists(_LIB_PATH):
+        return True
+    src = os.path.dirname(_LIB_PATH)
+    built = os.path.getmtime(_LIB_PATH)
+    return any(os.path.getmtime(os.path.join(src, f)) > built
+               for f in os.listdir(src) if f.endswith((".cc", ".h")))
+
+
 def get_lib():
     # Thread-safe singleton: the GTF side thread and the stream open race
     # here at startup. Two CDLL instances would each carry their OWN
@@ -49,7 +60,7 @@ def get_lib():
 
 def _load_lib_locked():
     global _lib
-    if not os.path.exists(_LIB_PATH):
+    if _stale():
         _build()
     lib = C.CDLL(_LIB_PATH)
     lib.strawb_bam_load.restype = C.c_void_p

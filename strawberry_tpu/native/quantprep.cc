@@ -523,7 +523,7 @@ void strawb_quant_locus(
 
 // Variant taking PRECOMPUTED per-(hit,iso) compatibility (hit-major 0/1
 // bytes) and per-hit packed seg-overlap bit rows — the integer halves that
-// the TPU computes bit-exactly (quant/device_prep.py). Passing nullptrs
+// the JAX device computes bit-exactly (quant/device_prep.py). Passing nullptrs
 // recomputes both on host (the original all-host path).
 void strawb_quant_locus_pre(
     const i64* h_off, const i8* h_code, const i64* h_left, const i32* h_len,

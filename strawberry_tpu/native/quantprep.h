@@ -27,7 +27,7 @@ void strawb_quant_locus(
     QuantLocusOut& out);
 
 // As above but consuming precomputed compatibility (hit-major 0/1 bytes)
-// and packed per-hit seg-overlap bit rows (the TPU-computed integer
+// and packed per-hit seg-overlap bit rows (the device-computed integer
 // halves); nullptrs recompute both on host.
 void strawb_quant_locus_pre(
     const int64_t* h_off, const int8_t* h_code, const int64_t* h_left,

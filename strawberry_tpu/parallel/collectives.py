@@ -44,9 +44,15 @@ def allreduce_scalar(mesh: Mesh, values: np.ndarray) -> float:
 
 
 def init_distributed(coordinator: str = "", num_processes: int = 1,
-                     process_id: int = 0):
-    """Multi-host entry (jax.distributed.initialize); no-op single host."""
+                     process_id: int = 0, procs_per_host: int = 0):
+    """Multi-process entry (jax.distributed.initialize); no-op for one
+    process. One process per card: hosts run `procs_per_host` processes
+    each (default: all on one host), numbered host by host, and process k
+    binds local card k % procs_per_host and no other, so processes
+    sharing a host never open each other's cards."""
     if num_processes > 1:
+        local = process_id % (procs_per_host or num_processes)
         jax.distributed.initialize(coordinator_address=coordinator,
                                    num_processes=num_processes,
-                                   process_id=process_id)
+                                   process_id=process_id,
+                                   local_device_ids=[local])

@@ -2,11 +2,11 @@
 
 The unit of parallelism is the gene locus (embarrassingly parallel, SURVEY
 §2 component 23): loci shard data-parallel over the 'dp' mesh axis. For the
-dense per-locus EM tensors we additionally shard the isoform axis over a
-'mdl' (tensor-parallel) axis — the E-step denominator is a contraction over
-isoforms, so XLA inserts the psum over ICI. Cross-locus global statistics
-(fragment-length histogram, total mapped reads, the TPM normalizer) ride
-psum collectives (see collectives.py).
+dense per-locus EM tensors the isoform axis can also shard over a 'mdl'
+(tensor-parallel) axis — the E-step denominator is a contraction over
+isoforms, so XLA inserts the psum across the devices. Cross-locus global
+statistics (fragment-length histogram, total mapped reads, the TPM
+normalizer) ride psum collectives (see collectives.py).
 """
 from __future__ import annotations
 
@@ -25,13 +25,14 @@ from ..quant.device import _em_bucket
 
 def make_mesh(n_devices: Optional[int] = None,
               axes: Tuple[str, str] = ("dp", "mdl"),
-              mdl: Optional[int] = None) -> Mesh:
+              mdl: int = 1) -> Mesh:
+    """Loci over 'dp'; the isoform axis over 'mdl' only when a caller asks
+    (every device reaches every other at the same rate, so the mesh
+    follows the algorithm: loci are independent)."""
     devs = jax.devices()
     if n_devices is not None:
         devs = devs[:n_devices]
     n = len(devs)
-    if mdl is None:
-        mdl = 2 if (n % 2 == 0 and n >= 4) else 1
     assert n % mdl == 0
     return Mesh(np.array(devs).reshape(n // mdl, mdl), axes)
 

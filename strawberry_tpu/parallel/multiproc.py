@@ -1,4 +1,4 @@
-"""Single-host multiprocess pipeline (-p N): the TPU-native successor of
+"""Single-host multiprocess pipeline (-p N): the successor of
 the reference's per-locus thread pool (SURVEY §2 component 23,
 src/alignments.cpp:19-28,1684-1727).
 
@@ -29,11 +29,21 @@ _PARENT = {}  # set pre-fork; children inherit it copy-on-write (passing the
               # HitTable through initargs would pickle ~100MB per worker)
 
 
-def _init_worker():
-    # forked workers must not share the parent's (possibly initialized)
-    # accelerator backend; keep their kernels on host
+def _host_only_worker():
+    """Forked workers never open the card: one JAX process per card (a
+    second one would fail for want of the memory the first reserved), and
+    a child must not share the parent's initialized backend. Every device
+    layer honors STRAWB_FORCE_HOST; a JAX backend the child does start is
+    the CPU's."""
     import os
+    import jax
     os.environ["STRAWB_FORCE_HOST"] = "1"
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    jax.config.update("jax_platforms", "cpu")
+
+
+def _init_worker():
+    _host_only_worker()
     _WORK.update(_PARENT)
 
 
@@ -151,12 +161,10 @@ def _ranged_worker(k: int, n: int, bam_path: str, cfg: Config, conn,
     compressed bytes inflated here — io.native.SpanDecoder, the same
     ingest the jax.distributed path uses), canonical-chromosome row
     exchange through the parent, then the two-pass pipeline on the owned
-    chromosomes. Replaces the r4 design's serial parent decode + COW
-    table inheritance (the measured cause of the -p 2 regression,
-    benchmarks/budget_50x.json p2_on_this_host)."""
+    chromosomes (no serial parent decode, no copy-on-write table)."""
     import os
     import time
-    os.environ["STRAWB_FORCE_HOST"] = "1"
+    _host_only_worker()
     dbg = os.environ.get("STRAWB_MP_DEBUG")
     t0 = time.perf_counter()
 

@@ -1,12 +1,13 @@
-"""Device (TPU) pass-2 quantification prep: the reads x isoforms kernels.
+"""Device pass-2 quantification prep: the reads x isoforms kernels.
 
 The LocusContext observation model (ref: src/estimate.cpp:135-198,
 src/contig.cpp:547-599) splits into an INTEGER half — read-vs-isoform
 compatibility and exon-segment overlap rows — and a FLOAT64 half (counts,
-theoretical bin weights, EM). Integer arithmetic is exact on the TPU, so
-the integer half runs as one batched jitted kernel over padded tensors and
-stays byte-identical; the f64 half stays on host (v5e f64 is emulated and
-measured NOT IEEE-bit-exact, so no golden-path float may run on device).
+theoretical bin weights, EM). Integer arithmetic is exact on any device,
+so the integer half runs as one batched jitted kernel over padded tensors
+and stays byte-identical; the f64 half stays on host (the golden path
+keeps every float on the host, where the reference's sums are
+reproduced bit for bit).
 
 Compatibility is re-derived in closed form from the reference's walk
 (contig.cpp:547-599): exons of an isoform are disjoint and sorted, so each
@@ -17,7 +18,8 @@ right end >= the feature's left), and the walk accepts iff
     follows the exon containing the closest preceding MATCH (the walk's
     `it` cursor), GAP features skipped.
 Both reduce to vectorized searchsorted + gather + compare over padded
-(pairs, features, exons) tensors — MXU-free but VPU-wide integer work.
+(pairs, features, exons) tensors — wide elementwise integer work, no
+matrix products.
 
 Host residue per locus (strawb_quant_finish_batch): bin grouping in
 first-encounter order, FNV fragment-set dedupe, f64 counts and the

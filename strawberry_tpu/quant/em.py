@@ -10,7 +10,7 @@ src/estimate.cpp:366-488) bit-for-bit in float64, including its quirks:
   * on convergence (||theta' - theta|| < 1e-2) the PREVIOUS theta is
     returned — `break` fires before `theta = next_theta` (estimate.cpp:479-481)
 
-The batched TPU version (quant/device.py) runs the same recurrence over
+The batched device version (quant/device.py) runs the same recurrence over
 padded (loci, bins, isoforms) tensors and is validated against this oracle.
 """
 from __future__ import annotations

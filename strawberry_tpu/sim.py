@@ -7,6 +7,7 @@ shipped), and by bench.py to generate load at scale.
 """
 from __future__ import annotations
 
+import functools
 import random
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -22,7 +23,7 @@ class SimTranscript:
     strand: str                      # '+', '-'
     exons: List[Tuple[int, int]]     # 1-based inclusive, ascending
 
-    @property
+    @functools.cached_property
     def length(self) -> int:
         return sum(r - l + 1 for l, r in self.exons)
 

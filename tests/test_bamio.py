@@ -19,6 +19,28 @@ def write(tmp_path, records, ref_names=("chr1",), ref_lens=(100000,)):
     return path
 
 
+def test_pack_seq_matches_per_base_encoding():
+    """The table-driven pack_seq emits the bytes of the spec's per-base
+    4-bit packing: case-insensitive, N (15) for unknown characters, a zero
+    low nibble after an odd last base."""
+    from strawberry_tpu.io.bamwriter import _NT2CODE, pack_seq
+
+    def per_base(seq):
+        out = bytearray()
+        for i in range(0, len(seq), 2):
+            hi = _NT2CODE.get(seq[i].upper(), 15)
+            lo = _NT2CODE.get(seq[i + 1].upper(), 15) \
+                if i + 1 < len(seq) else 0
+            out.append((hi << 4) | lo)
+        return bytes(out)
+
+    rng = np.random.default_rng(0)
+    alphabet = list("ACGTNacgtn=RYKMSWBDHVX.*?") + ["é"]
+    for n in list(range(6)) + [99, 100, 151]:
+        seq = "".join(rng.choice(alphabet, n))
+        assert pack_seq(seq) == per_base(seq), seq
+
+
 def test_roundtrip_basic(tmp_path):
     recs = [
         BamRecord("r1", 0, 0, 99, cigar=[(50, "M")], seq="A" * 50,

@@ -7,15 +7,16 @@ import sys
 
 import pytest
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 from strawberry_tpu.sim import make_dataset
 
 
 def run(cmd, args, tmp_path, tag):
-    env = dict(os.environ, STRAWB_PLATFORM="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     r = subprocess.run(cmd + args, capture_output=True, text=True,
-                       timeout=600, cwd="/root/repo", env=env)
+                       timeout=600, cwd=ROOT, env=env)
     assert r.returncode == 0, (tag, r.stderr[-1500:])
 
 

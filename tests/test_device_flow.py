@@ -60,3 +60,32 @@ def test_device_mcf_infeasible():
     assert solve_dense(cost.copy(), has.copy(), lower.copy()) is None
     assert batched_mcf([(cost, has, lower)],
                        device_min_nodes=0)[0] is None
+
+
+def test_batched_mcf_device_path_has_no_fallback(monkeypatch):
+    """Every problem routed to the device is solved there — no watchdog
+    hands a slow dispatch to the host — and the flows equal the spec."""
+    import strawberry_tpu.assembly.device as dev
+    assert not hasattr(dev, "_device_disabled")
+    assert not hasattr(dev, "_device_solve_with_timeout")
+    monkeypatch.delenv("STRAWB_FORCE_HOST", raising=False)
+    calls = []
+    orig = dev._mcf_bucket
+
+    def counting(*args, **kw):
+        calls.append(args[0].shape)
+        return orig(*args, **kw)
+
+    monkeypatch.setattr(dev, "_mcf_bucket", counting)
+    rng = np.random.default_rng(3)
+    problems = [random_cmpc_problem(rng, int(rng.integers(30, 60)))
+                for _ in range(20)]
+    stats = {}
+    out = batched_mcf(problems, device_min_nodes=0, stats=stats)
+    assert stats == {"device": 20, "host": 0}
+    assert calls and all(s == (16, 64, 64) for s in calls)
+    for i, p in enumerate(problems):
+        host = solve_dense(*[x.copy() for x in p])
+        assert (host is None) == (out[i] is None), i
+        if host is not None:
+            np.testing.assert_array_equal(out[i], host, err_msg=f"prob {i}")

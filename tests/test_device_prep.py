@@ -1,4 +1,4 @@
-"""Device quant-prep parity: the TPU integer compat/row kernels
+"""Device quant-prep parity: the integer compat/row device kernels
 (quant/device_prep.py) must be byte-identical to the all-host native path
 — integer arithmetic is exact on any backend, so these run on the CPU
 backend and prove the kernel math, while bench.py exercises the same code

@@ -6,17 +6,18 @@ import sys
 
 import pytest
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 from strawberry_tpu.io.bamwriter import BamRecord, BamWriter
 from strawberry_tpu.sim import make_dataset, write_gtf, SimTranscript
 
 
 def run_ours(args, tmp_path, expect_rc=0):
-    env = dict(os.environ, STRAWB_PLATFORM="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     r = subprocess.run([sys.executable, "-m", "strawberry_tpu.cli", *args],
                        capture_output=True, text=True, timeout=600,
-                       cwd="/root/repo", env=env)
+                       cwd=ROOT, env=env)
     assert r.returncode == expect_rc, r.stderr[-1500:]
     return r
 
@@ -43,11 +44,11 @@ def test_reads_outside_annotation(tmp_path, reference_binary):
     for tag, cmd in [("ref", [reference_binary]),
                      ("ours", [sys.executable, "-m", "strawberry_tpu.cli"])]:
         out = str(tmp_path / f"{tag}.gtf")
-        env = dict(os.environ, STRAWB_PLATFORM="cpu")
+        env = dict(os.environ, JAX_PLATFORMS="cpu")
         r = subprocess.run(cmd + ["-g", gtf2, "-r", "-o", out,
                                   "-T", str(tmp_path / f"{tag}.log"), bam],
                            capture_output=True, text=True, timeout=600,
-                           cwd="/root/repo", env=env)
+                           cwd=ROOT, env=env)
         assert r.returncode == 0, (tag, r.stderr[-1000:])
         outs[tag] = [l for l in open(out) if not l.startswith("#")]
     assert outs["ours"] == outs["ref"]
@@ -78,11 +79,11 @@ def test_low_mapq_warning_parity(tmp_path, reference_binary):
     for tag, cmd in [("ref", [reference_binary]),
                      ("ours", [sys.executable, "-m", "strawberry_tpu.cli"])]:
         out = str(tmp_path / f"{tag}.gtf")
-        env = dict(os.environ, STRAWB_PLATFORM="cpu")
+        env = dict(os.environ, JAX_PLATFORMS="cpu")
         r = subprocess.run(cmd + ["-g", gtf, "-r", "-q", "60", "-o", out,
                                   "-T", str(tmp_path / f"{tag}.log"), bam],
                            capture_output=True, text=True, timeout=600,
-                           cwd="/root/repo", env=env)
+                           cwd=ROOT, env=env)
         assert r.returncode == 0, (tag, r.stderr[-1500:])
         outs[tag] = [l for l in open(out) if not l.startswith("#")]
         warns[tag] = sorted({l for l in r.stderr.splitlines()

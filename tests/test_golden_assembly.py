@@ -6,7 +6,8 @@ import sys
 
 import pytest
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 from strawberry_tpu.sim import make_dataset
 
@@ -22,9 +23,9 @@ def run_both(tmp_path, reference_binary, extra_args=(), use_gtf=True,
         out = str(tmp_path / f"{tag}.gtf")
         args = cmd + (["-g", gtf] if use_gtf else []) + list(extra_args) + \
             ["-o", out, "-T", str(tmp_path / f"{tag}.log"), bam]
-        env = dict(os.environ, STRAWB_PLATFORM="cpu")
+        env = dict(os.environ, JAX_PLATFORMS="cpu")
         r = subprocess.run(args, capture_output=True, text=True, timeout=600,
-                           cwd="/root/repo", env=env)
+                           cwd=ROOT, env=env)
         assert r.returncode == 0, (tag, r.stderr[-2000:])
         outs[tag] = [l for l in open(out) if not l.startswith("#")]
     return outs

@@ -7,7 +7,8 @@ import sys
 
 import pytest
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 from strawberry_tpu.sim import make_dataset, write_genome_fasta
 from strawberry_tpu.io.fasta import build_fai
@@ -27,9 +28,9 @@ def run_both(tmp_path, reference_binary, extra=(), ours_extra=(),
             args += ["-g", gtf]
         args += [a.format(tmp=str(tmp_path), tag=tag) for a in extra]
         args += ["-o", out, "-T", str(tmp_path / f"{tag}.log"), bam]
-        env = dict(os.environ, STRAWB_PLATFORM="cpu")
+        env = dict(os.environ, JAX_PLATFORMS="cpu")
         r = subprocess.run(args, capture_output=True, text=True, timeout=600,
-                           cwd="/root/repo", env=env)
+                           cwd=ROOT, env=env)
         assert r.returncode == 0, (tag, r.stderr[-2000:])
         outs[tag] = [l for l in open(out) if not l.startswith("#")]
     return outs

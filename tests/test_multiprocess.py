@@ -6,7 +6,8 @@ import sys
 
 import pytest
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 from strawberry_tpu.sim import make_dataset
 
@@ -30,12 +31,12 @@ def test_multiprocess_frag_context_bias(tmp_path):
     for tag, extra in [("single", []), ("mp", ["-p", "3"])]:
         out = str(tmp_path / f"{tag}.gtf")
         frag = str(tmp_path / f"{tag}_frag.tsv")
-        env = dict(os.environ, STRAWB_PLATFORM="cpu")
+        env = dict(os.environ, JAX_PLATFORMS="cpu")
         r = subprocess.run(
             [sys.executable, "-m", "strawberry_tpu.cli", "-g", gtf, "-r",
              "-b", fa, "-f", frag, *extra, "-o", out,
              "-T", str(tmp_path / f"{tag}.log"), bam],
-            capture_output=True, text=True, timeout=600, cwd="/root/repo",
+            capture_output=True, text=True, timeout=600, cwd=ROOT,
             env=env)
         assert r.returncode == 0, (tag, r.stderr[-2000:])
         outs[tag] = [l for l in open(out) if not l.startswith("#")]
@@ -53,11 +54,11 @@ def test_multiprocess_matches_single(tmp_path, mode):
     outs = {}
     for tag, extra in [("single", []), ("mp", ["-p", "4"])]:
         out = str(tmp_path / f"{tag}.gtf")
-        env = dict(os.environ, STRAWB_PLATFORM="cpu")
+        env = dict(os.environ, JAX_PLATFORMS="cpu")
         r = subprocess.run(
             [sys.executable, "-m", "strawberry_tpu.cli", "-g", gtf, *mode,
              *extra, "-o", out, "-T", str(tmp_path / f"{tag}.log"), bam],
-            capture_output=True, text=True, timeout=600, cwd="/root/repo",
+            capture_output=True, text=True, timeout=600, cwd=ROOT,
             env=env)
         assert r.returncode == 0, (tag, r.stderr[-2000:])
         outs[tag] = [l for l in open(out) if not l.startswith("#")]

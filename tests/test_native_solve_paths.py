@@ -31,7 +31,7 @@ sys.stdout.write(out.getvalue())
 
 def _run(bam, gtf, env_extra):
     env = dict(os.environ)
-    env["STRAWB_PLATFORM"] = "cpu"
+    env["JAX_PLATFORMS"] = "cpu"
     env.update(env_extra)
     r = subprocess.run(
         [sys.executable, "-c",

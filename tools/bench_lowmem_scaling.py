@@ -1,12 +1,12 @@
 #!/usr/bin/env python
-"""--low-mem RSS scaling curve (VERDICT r2 item 8).
+"""--low-mem RSS scaling curve.
 
 Runs the full pipeline under --low-mem on the SAME annotation at 5M, 10M,
 20M and 40M reads and records each run's peak RSS: the streaming decode
 (O(window) block cap), the per-partition cluster pools, and the phase-
 boundary malloc_trim should keep the peak ~flat while the BAM quadruples.
-Writes benchmarks/lowmem_scaling.json. Wall times here are secondary (the
-runs may share the host with other work); RSS is the record.
+Prints one JSON line. Wall times here are secondary (the runs may share
+the host with other work); RSS is the record. The runs are host-only.
 """
 import json
 import os
@@ -33,7 +33,7 @@ print("RESULT", dt, len(sample.table), rss)
 
 
 def dataset(n_frags):
-    d = f"/tmp/strawberry_lowmem_{n_frags}"
+    d = os.path.join(ROOT, ".bench_data", f"lowmem_{n_frags}")
     bam = os.path.join(d, "sample_01.sorted.bam")
     gtf = os.path.join(d, "annotation.gtf")
     if not (os.path.exists(bam) and os.path.exists(gtf)):
@@ -49,7 +49,7 @@ def dataset_deep(n_frags):
     """Adversarial case: ALL reads on ONE chromosome (a real
     amplicon/targeted run) — whole-chromosome blocks would make low-mem
     O(file); sub-chromosome splitting must keep it O(window)."""
-    d = f"/tmp/strawberry_lowmem_deep_{n_frags}"
+    d = os.path.join(ROOT, ".bench_data", f"lowmem_deep_{n_frags}")
     bam = os.path.join(d, "sample_01.sorted.bam")
     gtf = os.path.join(d, "annotation.gtf")
     if not (os.path.exists(bam) and os.path.exists(gtf)):
@@ -62,6 +62,8 @@ def dataset_deep(n_frags):
 
 
 def main():
+    sys.path.insert(0, ROOT)
+    from strawberry_tpu.utils.jaxsetup import card
     rows = []
     for n_frags in (2_500_000, 5_000_000, 10_000_000, 20_000_000):
         bam, gtf = dataset(n_frags)
@@ -96,7 +98,7 @@ def main():
                               wall_s=round(float(dt), 2),
                               peak_rss_mb=round(float(rss))))
         print(deep_rows[-1], file=sys.stderr)
-    out = dict(mode="low_mem", rows=rows,
+    out = dict(mode="low_mem", card=card(), rows=rows,
                last_doubling_rss_growth_pct=round(grow, 1),
                deep_single_chromosome_rows=deep_rows,
                note="same 16-chrom annotation, read depth scaled 2x per "
@@ -104,9 +106,6 @@ def main():
                     "(sub-chromosome block splitting is what bounds "
                     "them); the rows are the record, judge them not "
                     "this note")
-    with open(os.path.join(ROOT, "benchmarks", "lowmem_scaling.json"),
-              "w") as fh:
-        json.dump(out, fh, indent=1)
     print(json.dumps(out))
 
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Realistic-scale scoreboard run (VERDICT r2 item 9).
+"""Realistic-scale scoreboard run.
 
 Dataset: ~20k genes over 24 chromosomes x 16Mb, up to 20 isoforms per gene
 (2-9 exons), lognormal (sigma 1.5) expression for uneven coverage, 5M
@@ -7,9 +7,10 @@ fr-stranded paired fragments (10M reads) with 2% indels / 3% soft clips —
 the shape of a real transcriptome rather than the easy 461/1797-locus
 sets, so tier/bucketing choices stop overfitting.
 
-Writes benchmarks/bench_realistic.json. With --golden also runs the
-reference binary (.refbuild/strawberry) on the same dataset and records
-whether the GTF bodies are byte-identical.
+Prints one JSON line naming the card; each run is a fresh child process
+(the only one holding the card; this parent never starts a JAX backend).
+With --golden also runs the reference binary (.refbuild/strawberry) on the
+same dataset and records whether the GTF bodies are byte-identical.
 """
 import json
 import os
@@ -18,7 +19,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-DATA = "/tmp/strawberry_bench_realistic"
+DATA = os.path.join(ROOT, ".bench_data", "realistic")
 
 _CHILD = """
 import resource, sys, time, io
@@ -55,6 +56,8 @@ def ensure_dataset():
 
 
 def main():
+    sys.path.insert(0, ROOT)
+    from strawberry_tpu.utils.jaxsetup import card
     bam, gtf = ensure_dataset()
     golden = "--golden" in sys.argv
     out = {}
@@ -88,6 +91,7 @@ def main():
     n_genes = len(iso_per)
     best["vs_baseline"] = round(best["reads_per_sec"] / 83000.0, 2)
     out = dict(
+        card=card(),
         dataset=dict(frags=5_000_000, n_chroms=24, chrom_len=16_000_000,
                      max_isoforms=20, exon_range=[2, 9],
                      abundance="lognormal_sigma1.5", protocol="fr",
@@ -119,9 +123,6 @@ def main():
                                                      / ref_wall),
                              speedup_vs_ref_same_host=round(
                                  ref_wall / best["wall_s"], 2))
-    path = os.path.join(ROOT, "benchmarks", "bench_realistic.json")
-    with open(path, "w") as fh:
-        json.dump(out, fh, indent=1)
     print(json.dumps(out))
 
 
